@@ -4,7 +4,7 @@ Renders a ground-truth image, perturbs both albedos, then optimizes them
 back with Adam over the differentiable render. Material/texture gradients
 are exact interior gradients; geometry gradients are silhouette-blind by
 construction (detached sampling), so geometry recovery needs an edge-aware
-loss and is out of scope for this demo. Run on CPU or TPU:
+loss and is out of scope for this demo. Run on CPU or GPU:
 
     python examples/inverse_rendering.py [--cpu]
 """

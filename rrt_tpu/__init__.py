@@ -1,20 +1,19 @@
-"""rrt_tpu — a TPU-native differentiable path tracer.
+"""rrt_tpu — a differentiable Monte Carlo path tracer in JAX.
 
-A from-scratch JAX/Pallas rebuild of the capabilities of jfroy/rrt (RTIOW +
-RTTNW), designed wavefront-first for TPU: matmul-form intersection on the
-MXU, branchless material scatter on the VPU, counter-based threefry
-randomness, shard_map data/sample parallelism over a device mesh, and
-path-replay-style rematerialized gradients.
+A from-scratch JAX rebuild of the capabilities of jfroy/rrt (RTIOW +
+RTTNW), designed wavefront-first: iterative bounce loops over megabatches
+of rays with stream compaction, branchless material scatter,
+counter-based threefry randomness, shard_map data/sample parallelism over
+a device mesh, and path-replay-style rematerialized gradients. XLA
+compiles it for the accelerator (an NVIDIA GPU) or the CPU.
 """
 
 from .camera import Camera, generate_rays
 from .geometry import Hit, intersect_all, make_hit
 from .materials import Scatter, scatter
 from .render import (RenderConfig, background_color, render_image,
-                     render_image_diff, render_image_queue,
-                     render_image_tiles, render_tile, tonemap,
-                     trace_batch, trace_queue, trace_tiles,
-                     trace_tiles_diff)
+                     render_image_diff, render_image_queue, render_tile,
+                     tonemap, trace_batch, trace_queue)
 from .scene import SceneArrays, SceneBuilder
 from .vec import V3
 

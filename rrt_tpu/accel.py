@@ -8,21 +8,16 @@ fallback on degenerate splits, same conservative slab test padded by
 64-deep traversal stack with near-child-first ordering by direction sign
 (src/acceleration.rs:221-272).
 
-Design note (SURVEY.md §7 "hard parts" #1), settled with device data in
-round 2 (benchmarks/bvh_sweep.py, recorded in BASELINE.md): a
-data-dependent stack walk is hostile to a lockstep vector machine —
-every ray in a batch pays for the deepest ray's walk, and the per-step
-node gathers are scalar-indexed. Measured on real TPU at S in
-{512, 4096, 16384}, this traversal is 14-40x slower than the dense tile
-forms and diverges with scene size; there is no crossover. The
-production acceleration structure is therefore build-side, consumed by
-the megakernel: Morton slot ordering (scene.SceneBuilder._morton_perm)
--> tight per-TS-tile AABBs (ops.megakernel.pack_*_bounds) -> whole-tile
-slab culling + near-first tile ordering + cross-family winner-t seeding,
-plus the box primitive family for box-heavy scenes. This module remains
-for (a) parity with the reference's component, and (b) the CPU/test
-oracle ("keep the dead oracle alive", src/lib.rs:32-47 pattern — here
-BVH and brute force check each other).
+Design note (SURVEY.md §7 "hard parts" #1): a data-dependent stack walk
+is hostile to a lockstep vector machine — every ray in a batch pays for
+the deepest ray's walk, and the per-step node gathers are scalar-indexed.
+The renderer's production path is therefore the dense (rays x slots)
+sweep of geometry.intersect_all, plus the box primitive family for
+box-heavy scenes. Whether per-ray traversal wins on a GPU at some scene
+size is an open measurement (benchmarks/bvh_sweep.py; ROADMAP S5). This
+module remains for (a) parity with the reference's component, and (b)
+the CPU/test oracle ("keep the dead oracle alive", src/lib.rs:32-47
+pattern — here BVH and brute force check each other).
 
 Two improvements over the reference, made consciously:
   * the Middle->EqualCount fallback applies per split, not to the whole

@@ -3,14 +3,11 @@
 The reference intersects one ray against one primitive at a time through a
 trait object (reference: src/sphere.rs:68-101, src/hittable.rs:5-8). Here a
 whole ray batch is tested against a whole primitive family at once, with
-every vector stored as separate component arrays (see rrt_tpu.vec for why
-(N,3) layouts are 43x-padded poison on TPU).
+every vector stored as separate component arrays (rrt_tpu.vec).
 
 Per-pair candidate work appears as (N,1)x(1,S) broadcasts that XLA fuses
-into the argmin reduction; on TPU the same math runs inside the fused
-Pallas kernels (rrt_tpu.ops.megakernel) so the (N,S) tile never touches
-HBM. Only the winning primitive's full hit record is reconstructed
-afterwards (`make_hit`).
+into the argmin reduction. Only the winning primitive's full hit record is
+reconstructed afterwards (`make_hit`).
 
 All selects use the double-where pattern so reverse-mode gradients stay
 finite at degenerate configurations (grazing rays, zero discriminants).
@@ -193,15 +190,12 @@ def intersect_boxes(scene: SceneArrays, o: V3, d: V3, t_min, t_max):
     for ob, db, hk in ((obx, dbx, scene.box_half[None, :, 0]),
                        (oby, dby, scene.box_half[None, :, 1]),
                        (obz, dbz, scene.box_half[None, :, 2])):
-        # Closed-form slab interval, rounding-identical to the
-        # megakernel's (ops/megakernel.py box tiles): min/max(t1,t2) =
+        # Closed-form slab interval: min/max(t1,t2) =
         # -ob*inv -/+ hk*|inv|; near-parallel axes substitute
         # inv = 1e18 (>> any real 1/db past the 1e-12 cutoff, but small
         # enough that ob*inv stays finite — 1e30 overflowed past
         # |ob| ~ 3.4e8, ADVICE r3), landing the interval at +/-huge with
-        # the correct emptiness. Keeping the two paths' fp rounding
-        # aligned keeps near-tie face decisions identical (tile-vs-scan
-        # grad tests compare them allclose).
+        # the correct emptiness.
         par = jnp.abs(db) <= 1e-12
         inv_db = jnp.where(par, 1e18,
                            _safe_div(jnp.ones_like(db), db, eps=1e-12))

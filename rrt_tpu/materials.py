@@ -2,9 +2,9 @@
 
 The reference dispatches `Material::scatter` through a vtable per ray
 (reference: src/materials.rs:5-7). With only five material models, the
-TPU-native form computes *all* responses for the whole batch and selects by
-material id — far cheaper on a lockstep vector machine than any divergence
-machinery, and exactly what the VPU is built for.
+batched form computes *all* responses for the whole batch and selects by
+material id — no divergence and no sort by material, at the cost of
+evaluating five cheap models per ray.
 
 Semantics mirror the books (and the reference where it has the material):
   lambertian  dir = n + unit_vector, degenerate -> n     (materials.rs:19-35)

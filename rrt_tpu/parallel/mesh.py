@@ -2,7 +2,7 @@
 
 This module *is* the communication backend (SURVEY.md §2.3/§5.8): there is
 no custom transport — sharding choices and XLA collectives live here so
-every cross-chip byte is visible in one place.
+every cross-device byte is visible in one place.
 
 Mesh axes (SURVEY.md §2.2 mapping):
   "dp"  — data parallel over pixel tiles (embarrassing; no communication
@@ -11,56 +11,72 @@ Mesh axes (SURVEY.md §2.2 mapping):
            Every sp-rank renders the same pixels at spp/sp samples and the
            radiance accumulator is `psum`ed over "sp" on device.
 
-The bounce chain itself is deliberately chip-local (the sequence-parallel
-non-decision, SURVEY.md §5.7): bounces are cheap and sequential, so scaling
-rides the enormous (tiles x samples) batch axes instead. Two more
-conscious non-decisions from the strategy inventory (SURVEY.md §2.2):
-pipeline parallelism (staging bounce k of tile i against bounce k-1 of
-tile i+1) buys nothing when there are no weights to partition and every
-stage runs the same kernel; and expert parallelism (materials-as-experts
-with cross-chip dispatch) degenerates for five material models into the
-branchless compute-all-and-select inside the scatter kernel
-(rrt_tpu.materials / ops.megakernel), with zero communication.
+The bounce chain itself is deliberately device-local (the
+sequence-parallel non-decision, SURVEY.md §5.7): bounces are cheap and
+sequential, so scaling rides the enormous (tiles x samples) batch axes
+instead. Two more conscious non-decisions from the strategy inventory
+(SURVEY.md §2.2): pipeline parallelism (staging bounce k of tile i against
+bounce k-1 of tile i+1) buys nothing when there are no weights to
+partition and every stage runs the same code; and expert parallelism
+(materials-as-experts with cross-device dispatch) degenerates for five
+material models into the branchless compute-all-and-select of
+rrt_tpu.materials, with zero communication.
+
+Every shard_map here runs with the static varying-manual-axes checker on
+(check_vma=True): the shared drivers cast their loop-carry inits varying
+(rrt_tpu.utils.vma.vary_for_mesh).
 
 Determinism: tile/pass random keys are global ids, so the rendered image is
 a pure function of (seed, tile grid, spp) — identical across any dp x sp
 mesh factorization, up to f32 psum ordering.
 """
 
-import os
 from functools import partial
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..camera import Camera
-from ..render import (RenderConfig, render_tile, tile_call, tile_chains,
-                      trace_queue)
+from ..render import (RenderConfig, _as_key, _check_passes, render_tile,
+                      tile_grid, trace_queue)
 from ..scene import SceneArrays
 
+_LOOPBACK_HOSTS = ("localhost", "127.0.0.1", "[::1]", "::1")
 
-def initialize_distributed(coordinator_address=None, num_processes=None,
-                           process_id=None):
-    """Multi-host process-group bring-up (SURVEY.md §2.3): one call per
-    host before any jax op; afterwards jax.devices() spans the slice and
-    the same Mesh/shard_map code runs unchanged — collectives ride ICI
-    within a slice and DCN across slices, inserted by XLA.
 
-    No-op when the environment provides coordination (TPU pods auto-detect
-    with no arguments)."""
-    kwargs = {}
-    if coordinator_address is not None:
-        kwargs.update(coordinator_address=coordinator_address,
-                      num_processes=num_processes, process_id=process_id)
-    jax.distributed.initialize(**kwargs)
+def initialize_distributed(coordinator_address: str, num_processes: int,
+                           process_id: int, local_device_ids=None):
+    """Multi-process bring-up (SURVEY.md §2.3): every process calls this
+    before any other jax op; afterwards jax.devices() spans every
+    process's devices and the same Mesh/shard_map code runs unchanged,
+    with XLA inserting the collectives (NVLink within a host, the
+    network across hosts).
+
+    local_device_ids restricts the GPUs this process opens. A JAX process
+    reserves most of each card's memory when it first uses it, so several
+    processes on one host must not all open every card. When the
+    coordinator is a loopback address every process runs on this host,
+    and the default gives process i the card i — one process per card.
+    Otherwise the default opens every local card (one process per host).
+    On the CPU backend the ids are ignored."""
+    if local_device_ids is None and num_processes > 1:
+        host = coordinator_address.rsplit(":", 1)[0]
+        if host in _LOOPBACK_HOSTS:
+            local_device_ids = [process_id]
+    jax.distributed.initialize(coordinator_address=coordinator_address,
+                               num_processes=num_processes,
+                               process_id=process_id,
+                               local_device_ids=local_device_ids)
 
 
 def make_mesh(devices=None, dp: int | None = None, sp: int | None = None):
     """Build a ("dp", "sp") mesh over the given devices.
 
-    Defaults: all sample-parallel for a handful of chips would starve tile
-    parallelism, so we split evenly-ish: sp = largest power-of-two <= sqrt.
+    Defaults: all sample-parallel for a handful of devices would starve
+    tile parallelism, so we split evenly-ish: sp = largest power-of-two
+    <= sqrt.
     """
     devices = jax.devices() if devices is None else devices
     n = len(devices)
@@ -75,337 +91,80 @@ def make_mesh(devices=None, dp: int | None = None, sp: int | None = None):
         sp = n // dp
     if dp * sp != n:
         raise ValueError(f"dp*sp={dp * sp} != device count {n}")
-    import numpy as np
     return Mesh(np.asarray(devices).reshape(dp, sp), ("dp", "sp"))
 
 
-def _vma_check() -> bool:
-    """check_vma for the queue/batch shard_maps: True — the static
-    varying-manual-axes verifier — by default (round 5, closing the
-    VERDICT r2 weak #6 watch item for these paths: the shared drivers'
-    loop-carry inits are cast varying via
-    rrt_tpu.utils.vma.vary_for_mesh and Pallas out_shapes declare
-    their vma in ops.megakernel.pallas_call; verified passing on both
-    the virtual CPU mesh and the real chip, including the in-loop
-    bounce_steps megakernel). False under RRT_INTERPRET=1: interpret
-    mode inlines the Pallas kernels as jax ops, leaking in-kernel loop
-    carries into the verifier.
-
-    The TILE-path shard_maps (trace_tiles_sharded /
-    trace_tiles_diff_sharded) stay check_vma=False on every backend:
-    the free-run kernel's ray-regeneration rows (carry[18:21]) enter
-    the bounce loop typed varying (read from the dp-sharded meta
-    block) but the kernel-internal recomputation loses the typing, and
-    pcast is INERT inside a Pallas kernel trace (measured: a pcast on
-    the carry output leaves jax.typeof without vma and the while_loop
-    check still fails, identically on real TPU and interpret) — the
-    mismatch is unfixable from kernel code today. Pinned by
-    tests/test_sharding.py::test_check_vma_policy; if a future
-    JAX/Pallas threads vma through kernel traces, flip TILE_CHECK_VMA
-    and drop this note."""
-    return os.environ.get("RRT_INTERPRET") != "1"
-
-
-# See _vma_check: the tile-resident kernel paths cannot satisfy the
-# verifier from kernel code; their collectives (assembly psums) are
-# correct by inspection and covered by the factorization-invariance
-# equivalence tests.
-TILE_CHECK_VMA = False
-
-
-def _padded_tiles(cfg: RenderConfig, dp: int):
-    """Flat pixel ids -> (n_tiles, tile_pixels) with n_tiles a multiple of
-    dp (padded tiles repeat the last pixel; cropped at assembly)."""
-    n_pix = cfg.width * cfg.height
-    tp = min(cfg.tile_pixels, n_pix)
-    n_tiles = -(-n_pix // tp)
-    n_tiles = -(-n_tiles // dp) * dp
-    ids = jnp.minimum(jnp.arange(n_tiles * tp, dtype=jnp.int32), n_pix - 1)
-    px = (ids % cfg.width).reshape(n_tiles, tp)
-    py = (ids // cfg.width).reshape(n_tiles, tp)
-    return px, py, n_tiles, tp
-
-
-@partial(jax.jit, static_argnames=("cfg", "mesh", "differentiable"))
+@partial(jax.jit, static_argnames=("cfg", "mesh", "differentiable",
+                                   "n_passes"))
 def render_image_sharded(scene: SceneArrays, camera: Camera,
                          cfg: RenderConfig, seed, mesh: Mesh,
-                         differentiable: bool = False):
-    """Render over the mesh. Returns (image (H,W,3), n_traced).
+                         differentiable: bool = False, pass_start=0,
+                         n_passes: int | None = None):
+    """Render over the mesh through the batch driver. Returns
+    (image (H,W,3) mean radiance over the rendered samples, n_traced).
+
+    pass_start (traced) / n_passes select the sample sub-range, as in
+    render.render_image; the passes split evenly over "sp".
 
     The returned image is materialized (unsharded) — callers that want to
     keep shards on-device (checkpointing, progressive preview) should use
     the tile-level API directly.
     """
-    if cfg.spp % cfg.samples_per_pass != 0:
-        raise ValueError("spp must be a multiple of samples_per_pass")
+    all_passes = _check_passes(cfg)
+    if n_passes is None:
+        n_passes = all_passes
     dp, sp = mesh.shape["dp"], mesh.shape["sp"]
-    n_passes = cfg.spp // cfg.samples_per_pass
     if n_passes % sp != 0:
-        raise ValueError(f"spp/samples_per_pass={n_passes} must be a "
-                         f"multiple of the sp axis ({sp})")
+        raise ValueError(f"passes={n_passes} (spp/samples_per_pass) must "
+                         f"be a multiple of the sp axis ({sp})")
     local_passes = n_passes // sp
 
-    seed_key = jax.random.key(seed) if jnp.issubdtype(
-        jnp.asarray(seed).dtype, jnp.integer) else seed
-    px, py, n_tiles, tp = _padded_tiles(cfg, dp)
+    seed_key = _as_key(seed)
+    px, py, n_tiles, tp = tile_grid(cfg, dp)
     local_tiles = n_tiles // dp
 
-    def shard_fn(px_l, py_l, scene, camera, seed_key):
+    def shard_fn(px_l, py_l, scene, camera, seed_key, pass_start):
         sp_rank = jax.lax.axis_index("sp")
 
         def do_tile(i):
             return render_tile(scene, camera, px_l[i], py_l[i], cfg,
                                seed_key,
-                               pass_start=sp_rank * local_passes,
+                               pass_start=pass_start
+                               + sp_rank * local_passes,
                                n_passes=local_passes,
                                differentiable=differentiable)
 
-        if differentiable:
-            parts = [do_tile(jnp.int32(i)) for i in range(local_tiles)]
-            rad = jnp.stack([r for r, _ in parts])
-            nt = sum(n for _, n in parts)
-        else:
-            # lax.scan, not lax.map: map's internal output buffer is an
-            # invariant init written with varying tile results, which
-            # the vma verifier rejects; scan's stacked ys take their
-            # type from the body output directly.
-            _, (rad, nt) = jax.lax.scan(
-                lambda c, i: (c, do_tile(i)), jnp.zeros((), jnp.int32),
-                jnp.arange(local_tiles, dtype=jnp.int32))
-            nt = jnp.sum(nt)
+        # lax.scan, not lax.map: map's internal output buffer is an
+        # invariant init written with varying tile results, which the vma
+        # verifier rejects; scan's stacked ys take their type from the
+        # body output directly.
+        _, (rad, nt) = jax.lax.scan(
+            lambda c, i: (c, do_tile(i)), jnp.zeros((), jnp.int32),
+            jnp.arange(local_tiles, dtype=jnp.int32))
         # Sample-dimension reduction on device — the "TP" psum.
         rad = jax.lax.psum(rad, "sp")
-        nt = jax.lax.psum(nt, ("dp", "sp"))
+        nt = jax.lax.psum(jnp.sum(nt), ("dp", "sp"))
         return rad, nt
 
     rad, n_traced = jax.shard_map(
         shard_fn, mesh=mesh,
-        in_specs=(P("dp"), P("dp"), P(), P(), P()),
-        out_specs=(P("dp"), P()), check_vma=_vma_check())(
-            px, py, scene, camera, seed_key)
+        in_specs=(P("dp"), P("dp"), P(), P(), P(), P()),
+        out_specs=(P("dp"), P()))(
+            px, py, scene, camera, seed_key,
+            jnp.asarray(pass_start, jnp.int32))
 
     rad = rad.reshape(n_tiles * tp, 3)[: cfg.width * cfg.height]
-    image = rad.reshape(cfg.height, cfg.width, 3) / jnp.float32(cfg.spp)
+    image = rad.reshape(cfg.height, cfg.width, 3) / jnp.float32(
+        n_passes * cfg.samples_per_pass)
     return image, n_traced
-
-
-@partial(jax.jit, static_argnames=("cfg", "mesh", "n_samples"))
-def trace_tiles_sharded(scene: SceneArrays, camera: Camera,
-                        cfg: RenderConfig, seed, mesh: Mesh,
-                        sample_lo=0, n_samples: int | None = None):
-    """Multi-device tile-resident render of samples
-    [sample_lo, sample_lo + n_samples): pixel-rectangle meta blocks
-    shard over "dp" (each rank runs ONE Pallas launch on its blocks),
-    the sample range splits over "sp", and the per-shard scatter into
-    the full pixel vector psums over both axes (dp shards cover
-    disjoint pixels, so the dp-psum is pure assembly — no double
-    counting). Returns (radiance sums (P,3), n_traced) — the sharded
-    analog of render.trace_tiles, used directly by the chunked-sharded
-    trainer (diff.make_train_step_chunked with a mesh).
-
-    Per-sample keys are global (pixel, sample)-addressed, so the sums
-    equal the single-device trace_tiles up to f32 summation order for
-    any mesh factorization."""
-    dp, sp = mesh.shape["dp"], mesh.shape["sp"]
-    n_samples = cfg.spp if n_samples is None else n_samples
-    if n_samples % sp != 0:
-        raise ValueError(f"n_samples={n_samples} must be a multiple of "
-                         f"sp={sp}")
-    spp_local = n_samples // sp
-    seed_key = jax.random.key(seed) if jnp.issubdtype(
-        jnp.asarray(seed).dtype, jnp.integer) else seed
-
-    from ..ops import megakernel as ops_mega
-    # Cap chains so every dp-rank gets at least one REAL pixel block:
-    # tile-heavy scenes default to one-instance packing (up to 128
-    # chains), which on a mesh would hand rank 0 the whole image and
-    # the other ranks pure padding.
-    n_pix_cap = cfg.width * cfg.height
-    chains = min(tile_chains(cfg, scene, spp_local),
-                 max(1, -(-n_pix_cap // (dp * ops_mega.TN))))
-    block = chains * ops_mega.TN
-    meta = ops_mega.pack_pixel_meta(cfg.width, cfg.height, block)
-    # Pad the meta column count to a multiple of dp*block with invalid
-    # (parked) columns so every rank gets whole launch blocks.
-    npad = meta.shape[1]
-    target = -(-npad // (dp * block)) * (dp * block)
-    if target != npad:
-        fill = jnp.tile(meta[:, -1:], (1, target - npad))
-        fill = fill.at[3, :].set(0.0)  # valid = 0
-        meta = jnp.concatenate([meta, fill], axis=1)
-    n_pix = cfg.width * cfg.height
-    base_lo = jnp.asarray(sample_lo, dtype=jnp.int32)
-
-    def shard_fn(meta_l, scene, camera, seed_key, base_lo):
-        sp_rank = jax.lax.axis_index("sp")
-        out = tile_call(scene, camera, cfg, seed_key, meta_l, chains,
-                        base_lo + sp_rank * spp_local, spp_local)
-        gid = meta_l[2].astype(jnp.int32)
-        validf = meta_l[3]
-        rad = jnp.zeros((n_pix, 3), jnp.float32).at[gid].add(
-            jnp.stack([out[0] * validf, out[1] * validf,
-                       out[2] * validf], axis=-1), mode="drop")
-        rad = jax.lax.psum(rad, ("dp", "sp"))
-        nt = jax.lax.psum(jnp.sum(out[3]), ("dp", "sp"))
-        return rad, nt
-
-    rad, n_traced = jax.shard_map(
-        shard_fn, mesh=mesh,
-        in_specs=(P(None, "dp"), P(), P(), P(), P()),
-        out_specs=(P(), P()), check_vma=TILE_CHECK_VMA)(
-            meta, scene, camera, seed_key, base_lo)
-    return rad, n_traced
-
-
-@partial(jax.jit, static_argnames=("cfg", "mesh"))
-def render_image_tiles_sharded(scene: SceneArrays, camera: Camera,
-                               cfg: RenderConfig, seed, mesh: Mesh):
-    """Multi-device forward rendering through the tile-resident
-    megakernel (the TPU fast path) — trace_tiles_sharded over the full
-    spp range, assembled into the (H,W,3) mean-radiance image."""
-    rad, n_traced = trace_tiles_sharded(scene, camera, cfg, seed, mesh)
-    image = rad.reshape(cfg.height, cfg.width, 3) / jnp.float32(cfg.spp)
-    return image, n_traced
-
-
-def trace_tiles_diff_sharded(scene: SceneArrays, camera: Camera,
-                             cfg: RenderConfig, seed, mesh: Mesh,
-                             sample_lo=0, chains: int | None = None,
-                             n_samples: int | None = None,
-                             sample_budget: int | None = None):
-    """Reverse-differentiable tile-resident render over the mesh — the
-    sharded fused train path (VERDICT r2 missing #1).
-
-    Pixel-meta blocks shard over "dp" (each rank runs ONE spill-forward
-    Pallas launch, and under AD one segmented replay+adjoint launch, on
-    its blocks); the spp range splits over "sp"; the per-shard radiance
-    scatter psums over both axes. Scene/camera enter replicated (P()),
-    so the shard_map transpose all-reduces their pack cotangents across
-    the whole mesh — the "parameter-gradient all-reduce overlapped with
-    the backward replay" of BASELINE.json's north star: XLA schedules
-    the psums alongside the backward launches, and the bounce chains
-    themselves stay chip-local (SURVEY.md §5.7).
-
-    Per-sample keys are global (pixel, sample)-addressed, so radiance
-    (and therefore every gradient contribution) matches the
-    single-device trace_tiles_diff for any dp x sp factorization up to
-    f32 summation order. Returns (radiance sums (P,3), n_traced).
-
-    Replaces the executor the reference builds around rayon
-    (/root/reference/src/threadpool.rs:11-27), with gradients the
-    reference doesn't have."""
-    from ..ops import megakernel as ops_mega
-    from ..ops import megakernel_train as mkt
-    from ..render import _as_key, _tile_packs, tile_chains_diff
-
-    dp, sp = mesh.shape["dp"], mesh.shape["sp"]
-    n_samples = cfg.spp if n_samples is None else n_samples
-    if n_samples % sp != 0:
-        raise ValueError(f"n_samples={n_samples} must be a multiple of "
-                         f"sp={sp}")
-    spp_local = n_samples // sp
-    from ..render import DIFF_SAMPLE_BUDGET
-    # Callers that already bound per-call samples externally (the
-    # chunked-sharded trainer) raise sample_budget to their per-rank
-    # chunk so each backward call is ONE custom_vjp chain with no remat
-    # split — mirroring render.trace_tiles_diff's sample_budget.
-    chunk = min(spp_local, sample_budget or DIFF_SAMPLE_BUDGET)
-    if chains is None:
-        # Same dp-aware cap as the forward: every rank must get real
-        # pixel blocks, not padding.
-        chains = min(tile_chains_diff(cfg, chunk),
-                     max(1, -(-(cfg.width * cfg.height)
-                              // (dp * ops_mega.TN))))
-    block = chains * ops_mega.TN
-    meta = ops_mega.pack_pixel_meta(cfg.width, cfg.height, block)
-    npad = meta.shape[1]
-    target = -(-npad // (dp * block)) * (dp * block)
-    if target != npad:
-        fill = jnp.tile(meta[:, -1:], (1, target - npad))
-        fill = fill.at[3, :].set(0.0)  # valid = 0
-        meta = jnp.concatenate([meta, fill], axis=1)
-    n_pix = cfg.width * cfg.height
-    seed_key = _as_key(seed)
-    from .. import rng as _rng
-    s0, s1 = _rng._seed_words(seed_key)
-    base_lo = jnp.asarray(sample_lo).astype(jnp.uint32)
-
-    def make_chain(n_samples):
-        return mkt.tile_train_chain(
-            n_samples, chains, scene.has_moving, scene.has_quads,
-            scene.has_boxes, scene.has_rot_boxes, scene.has_perlin,
-            scene.has_images, scene.images.shape[1],
-            scene.images.shape[2], cfg.max_depth, cfg.t_min,
-            n_media=scene.n_media_active, fam_n=scene.fam_n,
-            rr_depth=cfg.rr_depth)
-
-    def shard_fn(meta_l, scene, camera, s0, s1, base_lo):
-        sp_rank = jax.lax.axis_index("sp").astype(jnp.uint32)
-        rank_lo = base_lo + sp_rank * jnp.uint32(spp_local)
-        (cam24, sph24, quad24, box24, med24, bg8, atlas, sb, qb,
-         bb) = _tile_packs(scene, camera, cfg)
-        if atlas is None:
-            atlas = jnp.zeros((8, 128), jnp.float32)
-        if box24 is None:
-            box24 = jnp.zeros((24, ops_mega.TS), jnp.float32)
-            bb = jnp.zeros((1, 8), jnp.float32)
-        if qb is None:
-            qb = jnp.zeros((1, 8), jnp.float32)
-        if scene.n_media_active == 0:
-            med24 = jnp.zeros((1, 24), jnp.float32)
-        gid = meta_l[2].astype(jnp.int32)
-        validf = meta_l[3]
-        rad = jnp.zeros((n_pix, 3), jnp.float32)
-        nt = jnp.zeros((), jnp.float32)
-        # Per-rank sample range in DIFF_SAMPLE_BUDGET chunks (gradient
-        # accumulation across custom_vjp chains keeps the backward's
-        # boundary buffer VMEM-bounded at any spp).
-        for c_lo in range(0, spp_local, chunk):
-            seed2 = jnp.stack([s0, s1, rank_lo + jnp.uint32(c_lo),
-                               jnp.uint32(0)]).astype(jnp.uint32)
-            chain = make_chain(min(chunk, spp_local - c_lo))
-            # jax.checkpoint per chunk, as in trace_tiles_diff: without
-            # it a nonlinear loss keeps every chunk's segment-boundary
-            # residual alive at once (~GBs/chunk at full image). Only
-            # when there IS more than one chunk — remat re-runs the
-            # spill forward, a pure cost at a single chunk.
-            wrap = jax.checkpoint if spp_local > chunk else (lambda f: f)
-            out = wrap(chain)(
-                meta_l, seed2, cam24, sph24, quad24, box24, med24,
-                bg8, atlas, sb, qb, bb)
-            rad = rad.at[gid].add(
-                jnp.stack([out[0] * validf, out[1] * validf,
-                           out[2] * validf], axis=-1), mode="drop")
-            nt = nt + jnp.sum(jax.lax.stop_gradient(out[3]))
-        # dp shards cover disjoint pixels: the dp-psum is pure assembly;
-        # the sp-psum is the sample-dimension reduction.
-        rad = jax.lax.psum(rad, ("dp", "sp"))
-        nt = jax.lax.psum(nt, ("dp", "sp"))
-        return rad, nt
-
-    rad, n_traced = jax.shard_map(
-        shard_fn, mesh=mesh,
-        in_specs=(P(None, "dp"), P(), P(), P(), P(), P()),
-        out_specs=(P(), P()), check_vma=TILE_CHECK_VMA)(
-            meta, scene, camera, s0, s1, base_lo)
-    return rad, n_traced
 
 
 def render_image_diff_sharded(scene: SceneArrays, camera: Camera,
                               cfg: RenderConfig, seed, mesh: Mesh):
-    """Differentiable full-image render over the mesh, fastest available
-    path: the sharded fused tile train step when the scene is in kernel
-    scope and the backend can run Pallas (real TPU, or RRT_INTERPRET=1),
-    else the rematerialized-scan shard_map path. Returns
-    (image (H,W,3) mean radiance, n_traced)."""
-    from ..ops import megakernel as ops_mega
-    from ..ops import megakernel_train as mkt
-    if (cfg.use_megakernel and ops_mega.kernels_available()
-            and mkt.supports_train(scene)):
-        rad, n = trace_tiles_diff_sharded(scene, camera, cfg, seed, mesh)
-        image = rad.reshape(cfg.height, cfg.width, 3) / jnp.float32(
-            cfg.spp)
-        return image, n
+    """Differentiable full-image render over the mesh (the
+    rematerialized-scan batch driver). Scene and camera enter replicated,
+    so the shard_map transpose all-reduces their gradients across the
+    mesh. Returns (image (H,W,3) mean radiance, n_traced)."""
     return render_image_sharded(scene, camera, cfg, seed, mesh,
                                 differentiable=True)
 
@@ -425,8 +184,7 @@ def render_image_queue_sharded(scene: SceneArrays, camera: Camera,
         raise ValueError(f"spp={cfg.spp} must be a multiple of sp={sp}")
     spp_local = cfg.spp // sp
 
-    seed_key = jax.random.key(seed) if jnp.issubdtype(
-        jnp.asarray(seed).dtype, jnp.integer) else seed
+    seed_key = _as_key(seed)
     n_pix = cfg.width * cfg.height
     n_pad = -(-n_pix // dp) * dp
     ids = jnp.minimum(jnp.arange(n_pad, dtype=jnp.int32), n_pix - 1)
@@ -437,7 +195,9 @@ def render_image_queue_sharded(scene: SceneArrays, camera: Camera,
         sp_rank = jax.lax.axis_index("sp")
         rad, nt = trace_queue(scene, camera, px_l[0], py_l[0], cfg,
                               seed_key, sp_rank * spp_local,
-                              sp_rank * spp_local + spp_local)
+                              sp_rank * spp_local + spp_local,
+                              queue_size=min(cfg.queue_size,
+                                             (n_pad // dp) * spp_local))
         rad = jax.lax.psum(rad, "sp")
         nt = jax.lax.psum(nt, ("dp", "sp"))
         return rad[None], nt
@@ -445,7 +205,7 @@ def render_image_queue_sharded(scene: SceneArrays, camera: Camera,
     rad, n_traced = jax.shard_map(
         shard_fn, mesh=mesh,
         in_specs=(P("dp"), P("dp"), P(), P(), P()),
-        out_specs=(P("dp"), P()), check_vma=_vma_check())(
+        out_specs=(P("dp"), P()))(
             px, py, scene, camera, seed_key)
 
     rad = rad.reshape(n_pad, 3)[:n_pix]

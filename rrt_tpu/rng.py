@@ -1,6 +1,6 @@
 """Counter-based, stateless random sampling for the wavefront renderer.
 
-Design (TPU-first, intentionally different from the reference):
+Design (vector-machine-first, intentionally different from the reference):
 
 The reference threads a mutable xoshiro128+ generator through every thread
 via an unsafe thread-local (reference: src/rng.rs:14, src/threadpool.rs:6-24)
@@ -16,11 +16,10 @@ determinism than the reference, whose output changes with thread count
 samples can be re-rendered in isolation (SURVEY.md §5.3/5.4).
 
 Implementation note: draws use a hand-vectorized Threefry-2x32 over raw
-(N, 2) uint32 key words rather than per-lane `jax.vmap(jax.random.*)`.
-The vmapped jax.random path costs ~28 ms per draw batch at N=262k on TPU
-(per-lane key plumbing defeats its vectorization); the direct counter hash
-below is pure elementwise u32 VPU work (~200 ops/lane) and runs in <1 ms.
-Same construction as jax.random's threefry — counters in, iid words out.
+(N, 2) uint32 key words rather than per-lane `jax.vmap(jax.random.*)`,
+whose per-lane key plumbing defeats vectorization; the direct counter
+hash below is pure elementwise u32 work (~200 ops per lane). Same
+construction as jax.random's threefry — counters in, iid words out.
 
 Rejection sampling is replaced with closed-form equal-distribution samplers:
 

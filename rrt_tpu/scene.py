@@ -2,12 +2,12 @@
 
 The reference stores a `Vec<Sphere>` of boxed trait objects and dispatches
 `hit`/`scatter` through vtables per ray (reference: src/scene.rs:5-8,
-src/hittable.rs:5-8). That shape is hostile to a vector machine, so the
-TPU-native design compiles the whole scene into structure-of-arrays tensors
-once on the host:
+src/hittable.rs:5-8). That shape is hostile to a vector machine, so this
+design compiles the whole scene into structure-of-arrays tensors once on
+the host:
 
   * primitives are grouped into *families* (spheres, quads, constant media),
-    each an SoA block padded to a lane multiple; intersection is batched per
+    each an SoA block padded to a multiple of 128 slots; intersection is batched per
     family and merged by argmin over t;
   * materials/textures are tables indexed by integer ids carried in the hit
     record — no dynamic dispatch anywhere on device;
@@ -53,7 +53,9 @@ BG_SOLID = 1  # constant bg_bottom (RTTNW "black" scenes use (0,0,0))
 BOUND_SPHERE = 0
 BOUND_OBB = 1
 
-_LANE = 128  # pad SoA families to multiples of the TPU lane count
+# Pad SoA families to multiples of 128 slots: scenes of similar size
+# share array shapes, and so compiled programs.
+_LANE = 128
 
 
 @jax.tree_util.register_dataclass
@@ -139,32 +141,12 @@ class SceneArrays:
         default=False, metadata=dict(static=True))
     has_moving: bool = dataclasses.field(
         default=False, metadata=dict(static=True))
-    # Image textures on media force the XLA fallback (media albedo is
-    # resolved to a solid color at pack time; sphere/quad image textures
-    # run in-kernel via the one-hot atlas lookup with per-family uv).
-    has_images_on_media: bool = dataclasses.field(
-        default=False, metadata=dict(static=True))
     # True (unpadded) constant-medium count. Medium arrays pad to 8
-    # slots, but draws are per-slot counter-addressed, so kernels can
-    # loop only the active slots without shifting any RNG stream.
+    # slots, but draws are per-slot counter-addressed, so the
+    # intersection loops only the active slots without shifting any RNG
+    # stream.
     n_media_active: int = dataclasses.field(
         default=0, metadata=dict(static=True))
-    # True (unpadded) primitive-family counts. Family arrays pad to 128
-    # lanes; valid slots always come first (build order, preserved by
-    # the Morton sort), so the megakernel's scalar small-family path can
-    # unroll exactly the active slots (megakernel.SMALL_FAMILY_MAX).
-    n_spheres_active: int = dataclasses.field(
-        default=0, metadata=dict(static=True))
-    n_quads_active: int = dataclasses.field(
-        default=0, metadata=dict(static=True))
-    n_boxes_active: int = dataclasses.field(
-        default=0, metadata=dict(static=True))
-
-    @property
-    def fam_n(self) -> tuple:
-        """(spheres, quads, boxes) true counts for the megakernel."""
-        return (self.n_spheres_active, self.n_quads_active,
-                self.n_boxes_active)
 
     @property
     def n_spheres(self) -> int:
@@ -421,32 +403,7 @@ class SceneBuilder:
 
     # -- freeze -----------------------------------------------------------
 
-    @staticmethod
-    def _morton_perm(centers: np.ndarray, valid: np.ndarray) -> np.ndarray:
-        """Permutation putting valid slots in Morton (Z-curve) order,
-        invalid slots last. A spatially coherent slot order keeps the
-        megakernel's per-TS-tile AABBs tight so whole-tile
-        culling fires on large scenes — the build-side TPU answer to the
-        reference's BVH build (/root/reference/src/acceleration.rs:150-217):
-        instead of a pointer tree walked per ray, the spatial hierarchy
-        is baked into slot order and consumed as tile bounds."""
-        n = centers.shape[0]
-        if valid.sum() <= 1:
-            return np.arange(n)
-        c = centers[valid]
-        lo, hi = c.min(0), c.max(0)
-        q = np.clip((c - lo) / np.maximum(hi - lo, 1e-20) * 1023.0,
-                    0.0, 1023.0).astype(np.uint64)
-        code = np.zeros(len(c), np.uint64)
-        for b in range(10):
-            for a in range(3):
-                code |= ((q[:, a] >> np.uint64(b)) & np.uint64(1)) \
-                    << np.uint64(3 * b + a)
-        return np.concatenate([
-            np.flatnonzero(valid)[np.argsort(code, kind="stable")],
-            np.flatnonzero(~valid)])
-
-    def build(self, spatial_sort: bool = False) -> SceneArrays:
+    def build(self) -> SceneArrays:
         f32, i32 = np.float32, np.int32
 
         ns = _pad_to(len(self._spheres))
@@ -489,22 +446,6 @@ class SceneBuilder:
             box_cos[i], box_sin[i] = cth, sth
             box_mat[i] = m
             box_valid[i] = True
-
-        if spatial_sort:
-            ps = self._morton_perm(sphere_c0 + 0.5 * sphere_dc,
-                                   sphere_valid)
-            sphere_c0, sphere_dc = sphere_c0[ps], sphere_dc[ps]
-            sphere_t0, sphere_inv_dt = sphere_t0[ps], sphere_inv_dt[ps]
-            sphere_radius, sphere_mat = sphere_radius[ps], sphere_mat[ps]
-            sphere_valid = sphere_valid[ps]
-            pq = self._morton_perm(quad_q + 0.5 * (quad_u + quad_v),
-                                   quad_valid)
-            quad_q, quad_u, quad_v = quad_q[pq], quad_u[pq], quad_v[pq]
-            quad_mat, quad_valid = quad_mat[pq], quad_valid[pq]
-            pb = self._morton_perm(box_center, box_valid)
-            box_center, box_half = box_center[pb], box_half[pb]
-            box_cos, box_sin = box_cos[pb], box_sin[pb]
-            box_mat, box_valid = box_mat[pb], box_valid[pb]
 
         nd = _pad_to(len(self._media), lane=8)
         med_btype = np.zeros((nd,), i32)
@@ -584,23 +525,8 @@ class SceneBuilder:
             has_emissive=bool((mat_type == MAT_DIFFUSE_LIGHT).any()),
             has_moving=bool(np.abs(sphere_dc).max() > 0.0)
             if len(self._spheres) else False,
-            has_images_on_media=self._has_images_on_media(
-                tex_type, med_mat[med_valid]),
             n_media_active=len(self._media),
-            n_spheres_active=len(self._spheres),
-            n_quads_active=len(self._quads),
-            n_boxes_active=len(self._boxes),
         )
-
-    def _has_images_on_media(self, tex_type, med_mats):
-        if not self._images:
-            return False
-        img_tex = set(np.nonzero(tex_type == TEX_IMAGE)[0].tolist())
-        for m in list(med_mats):
-            if self._materials[int(m)][1] in img_tex:
-                return True
-        return False
-
 
 def boxes_as_quads(center, half, cos_t, sin_t, mat, valid):
     """Expand box-family slots into the books' 6-quad decomposition

@@ -178,6 +178,4 @@ def rttnw_final_scene(nx: int, ny: int, seed: int = 0,
     cam = Camera.create(look_from=(478.0, 278.0, -600.0),
                         look_at=(278.0, 278.0, 0.0), fov_deg=40.0,
                         aspect=nx / ny, time0=0.0, time1=1.0)
-    # Morton-order the 3.7k slots so the megakernel's per-tile bounds
-    # are tight enough for whole-tile culling to fire.
-    return b.build(spatial_sort=True), cam
+    return b.build(), cam

@@ -16,10 +16,10 @@ from .vec import V3
 
 def _lattice_grad(ix, iy, iz):
     """Gradient vector at an integer lattice point from a computational
-    hash — the TPU-native replacement for the book's permutation/gradient
-    tables (RTTNW ch. 5). Table lookups are per-lane gathers (~ms-class
-    on TPU, 56 per bounce at 7 octaves); this is pure elementwise u32
-    arithmetic. Same statistical construction: pseudo-random unit-ish
+    hash — the replacement for the book's permutation/gradient tables
+    (RTTNW ch. 5), whose lookups would be 56 per-lane gathers per bounce
+    at 7 octaves; this is pure elementwise u32 arithmetic. Same
+    statistical construction: pseudo-random unit-ish
     gradient per lattice point, fully deterministic."""
     h = (ix.astype(jnp.uint32) * jnp.uint32(0x8DA6B343)
          + iy.astype(jnp.uint32) * jnp.uint32(0xD8163841)

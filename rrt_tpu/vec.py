@@ -1,16 +1,14 @@
-"""Component-SoA 3-vectors: the TPU-native vector layout.
+"""Component-SoA 3-vectors: the wavefront renderer's vector layout.
 
-A `(N, 3)` array on TPU is laid out with the minor dimension padded to the
-128-lane register width — 43/128 of every elementwise op and HBM transfer
-is wasted on padding. Measured on v5e: a (262144, 3) elementwise add runs
-~200x below bandwidth. The fix is structural: vectors are stored as three
-separate `(N,)` arrays (lane-major, zero padding), bundled in this
-NamedTuple so the physics code stays readable.
+Vectors are stored as three separate `(N,)` arrays, bundled in this
+NamedTuple so the physics code stays readable. Every elementwise op then
+runs over the long batch dimension with unit-stride, unpadded loads, and
+no op ever reduces or shuffles across a length-3 minor axis.
 
 The reference's ultraviolet Vec4 (w-padded for 4-wide SIMD,
-src/types.rs:6-7) is the same idea for a 4-lane CPU; on a 8x128-lane VPU
-the batch dimension provides the lanes and per-component arrays are the
-only layout that doesn't waste them.
+src/types.rs:6-7) is the same idea for a 4-lane CPU; on a wide vector
+machine the batch dimension provides the lanes and per-component arrays
+are the layout that doesn't waste them.
 """
 
 from typing import NamedTuple

@@ -72,38 +72,62 @@ def test_train_step_leaks_no_tracers():
     assert np.isfinite(float(loss))
 
 
-def test_enable_persistent_cache_respects_user_config(monkeypatch):
-    """rrt_tpu.utils.cache.enable_persistent_cache must set the jax
-    compilation cache dir (the env var alone is IGNORED by the TPU
-    plugin — BASELINE.md round-5 addendum) while never clobbering a
-    dir the user already configured."""
-    import jax
-
+def test_enable_persistent_cache_respects_user_config(monkeypatch,
+                                                     tmp_path):
+    """A user's JAX_COMPILATION_CACHE_DIR wins over the checkout default,
+    even when it was set after jax was imported."""
     from rrt_tpu.utils.cache import enable_persistent_cache
 
     prev = jax.config.jax_compilation_cache_dir
     try:
-        jax.config.update("jax_compilation_cache_dir", None)
-        got = enable_persistent_cache("/tmp/rrt_cache_test")
-        assert got == "/tmp/rrt_cache_test"
-        assert jax.config.jax_compilation_cache_dir == "/tmp/rrt_cache_test"
-        # an already-configured dir wins over the helper's default —
-        # but update is still RE-ISSUED with that value: the config
-        # VALUE being set (e.g. inherited from the env var at import)
-        # is not sufficient on the TPU plugin; the update hook is what
-        # initializes the cache.
-        calls = []
-        orig_update = jax.config.update
-
-        def counting(name, value):
-            calls.append((name, value))
-            orig_update(name, value)
-
-        monkeypatch.setattr(jax.config, "update", counting)
-        got2 = enable_persistent_cache("/tmp/other")
-        monkeypatch.undo()
-        assert got2 == "/tmp/rrt_cache_test"
-        assert ("jax_compilation_cache_dir",
-                "/tmp/rrt_cache_test") in calls
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert enable_persistent_cache() == str(tmp_path)
+        assert jax.config.jax_compilation_cache_dir == str(tmp_path)
     finally:
         jax.config.update("jax_compilation_cache_dir", prev)
+
+
+@pytest.mark.parametrize("env_set", [True, False],
+                         ids=["env", "default"])
+def test_compile_cache_written_where_configured(tmp_path, env_set):
+    """A fresh process compiles one function: with
+    JAX_COMPILATION_CACHE_DIR set the cache lands there and nowhere else;
+    without it, in <checkout>/.jax_cache. The package is copied into a
+    scratch checkout so that its default cache is private to this
+    test."""
+    import os
+    import shutil
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    checkout = tmp_path / "checkout"
+    shutil.copytree(os.path.join(repo, "rrt_tpu"), checkout / "rrt_tpu",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    script = (
+        "import jax, jax.numpy as jnp\n"
+        "from rrt_tpu.utils.cache import enable_persistent_cache\n"
+        "jax.config.update('jax_persistent_cache_min_compile_time_secs', "
+        "0)\n"
+        "print(enable_persistent_cache())\n"
+        "jax.jit(lambda x: jnp.sin(x) * 3.0)(jnp.ones(7))"
+        ".block_until_ready()\n")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(checkout))
+    env.pop("JAX_COMPILATION_CACHE_DIR", None)
+    env_dir = tmp_path / "jc"
+    if env_set:
+        env["JAX_COMPILATION_CACHE_DIR"] = str(env_dir)
+    out = subprocess.run([sys.executable, "-c", script], env=env,
+                         cwd=str(tmp_path), capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    default_dir = checkout / ".jax_cache"
+    where = out.stdout.strip().splitlines()[-1]
+    if env_set:
+        assert where == str(env_dir)
+        assert os.listdir(env_dir)
+        assert not default_dir.exists()
+    else:
+        assert where == str(default_dir)
+        assert os.listdir(default_dir)
+        assert not env_dir.exists()

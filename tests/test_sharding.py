@@ -93,255 +93,64 @@ def test_sharded_queue_matches_single():
         assert int(n1) == int(n2)
 
 
-@pytest.mark.slow
-def test_fused_train_sharded_matches_single(monkeypatch):
-    """The sharded fused tile train path (VERDICT r2 missing #1):
-    virtual-8-mesh scene+camera gradients through
-    trace_tiles_diff_sharded must match the single-device fused path
-    (trace_tiles_diff) — same kernels, same (pixel, sample)-global
-    keys; only f32 psum/summation order differs. Runs the Pallas
-    kernels in interpret mode via RRT_INTERPRET."""
-    monkeypatch.setenv("RRT_INTERPRET", "1")
-    from rrt_tpu.diff import combine, partition
-    from rrt_tpu.parallel.mesh import trace_tiles_diff_sharded
-    from rrt_tpu.render import trace_tiles_diff
-
-    cfg = rrt_tpu.RenderConfig(width=16, height=8, spp=4, max_depth=3)
-    scene, cam = chap11_scene(cfg.width, cfg.height)
-    params = partition(scene)
-
-    def loss_single(p, c):
-        rad, _ = trace_tiles_diff(combine(scene, p), c, cfg, 0)
-        return jnp.mean(rad * rad)
-
-    mesh = make_mesh(dp=4, sp=2)
-
-    def loss_sharded(p, c):
-        rad, _ = trace_tiles_diff_sharded(combine(scene, p), c, cfg, 0,
-                                          mesh)
-        return jnp.mean(rad * rad)
-
-    l1, (gp1, gc1) = jax.value_and_grad(loss_single, argnums=(0, 1))(
-        params, cam)
-    l2, (gp2, gc2) = jax.value_and_grad(loss_sharded, argnums=(0, 1))(
-        params, cam)
-    np.testing.assert_allclose(float(l1), float(l2), rtol=1e-5)
-    flat1 = jax.tree_util.tree_leaves((gp1, gc1))
-    flat2 = jax.tree_util.tree_leaves((gp2, gc2))
-    total = 0.0
-    for a, b in zip(flat1, flat2):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=2e-4, atol=1e-6)
-        total += float(jnp.sum(jnp.abs(a)))
-    assert total > 0.0  # gradients actually flowed
-
-
-@pytest.mark.slow
-def test_fused_train_sharded_factorization_invariance(monkeypatch):
-    """Any dp x sp factorization produces the same fused-path gradients
-    (global sample keys; psum-order differences only)."""
-    monkeypatch.setenv("RRT_INTERPRET", "1")
-    from rrt_tpu.diff import combine, partition
-    from rrt_tpu.parallel.mesh import trace_tiles_diff_sharded
-
-    cfg = rrt_tpu.RenderConfig(width=16, height=8, spp=4, max_depth=3)
-    scene, cam = chap11_scene(cfg.width, cfg.height)
-    params = partition(scene)
-
-    grads = []
-    for dp, sp in ((8, 1), (2, 4)):
-        mesh = make_mesh(dp=dp, sp=sp)
-
-        def loss(p):
-            rad, _ = trace_tiles_diff_sharded(combine(scene, p), cam,
-                                              cfg, 0, mesh)
-            return jnp.mean(rad * rad)
-
-        grads.append(jax.grad(loss)(params))
-    for a, b in zip(jax.tree_util.tree_leaves(grads[0]),
-                    jax.tree_util.tree_leaves(grads[1])):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=2e-4, atol=1e-6)
-
-
-@pytest.mark.slow
-def test_fused_train_sharded_sample_chunking(monkeypatch):
-    """The sharded fused train path chunks each rank's sample range at
-    DIFF_SAMPLE_BUDGET; forcing a tiny budget must reproduce the
-    unchunked sharded gradients exactly (same keys; f32 order only)."""
-    monkeypatch.setenv("RRT_INTERPRET", "1")
-    import rrt_tpu.render as rrender
-    from rrt_tpu.diff import combine, partition
-    from rrt_tpu.parallel.mesh import trace_tiles_diff_sharded
-
-    cfg = rrt_tpu.RenderConfig(width=16, height=8, spp=4, max_depth=3)
-    scene, cam = chap11_scene(cfg.width, cfg.height)
-    params = partition(scene)
-    mesh = make_mesh(dp=4, sp=2)
-
-    def loss(p):
-        rad, _ = trace_tiles_diff_sharded(combine(scene, p), cam, cfg,
-                                          0, mesh)
-        return jnp.mean(rad * rad)
-
-    l_ref, g_ref = jax.value_and_grad(loss)(params)
-    monkeypatch.setattr(rrender, "DIFF_SAMPLE_BUDGET", 1)
-    l_ch, g_ch = jax.value_and_grad(loss)(params)
-    np.testing.assert_allclose(float(l_ref), float(l_ch), rtol=1e-6)
-    for a, b in zip(jax.tree_util.tree_leaves(g_ref),
-                    jax.tree_util.tree_leaves(g_ch)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=1e-4, atol=1e-7)
-
-
-def test_check_vma_policy(monkeypatch):
-    """Round 5 flipped shard_map's static varying-manual-axes verifier
-    ON for real execution (VERDICT r2 weak #6 watch-list item): the
-    shared drivers cast their loop-carry inits varying
-    (rrt_tpu.utils.vma.vary_for_mesh) and Pallas out_shapes declare
-    their vma (ops.megakernel.pallas_call), so the pure-XLA sharded
-    paths typecheck — exercised implicitly by every non-interpret
-    sharded test in this file, and explicitly here. The one remaining
-    False is RRT_INTERPRET=1 (mesh._vma_check): interpret mode inlines
-    the Pallas kernels, leaking in-kernel loop carries (lane-iota ray
-    regeneration, invariant by construction) into the verifier. This
-    test pins BOTH halves; when the interpret half stops raising,
-    remove _vma_check and pass True unconditionally."""
-    import importlib
+def test_check_vma_policy():
+    """Every shard_map in parallel.mesh runs with the static
+    varying-manual-axes verifier on: the module passes no check_vma, so
+    jax's default (True) holds, and no kernel path needs it off."""
+    import inspect
 
     import rrt_tpu.parallel.mesh as mesh_mod
 
-    monkeypatch.delenv("RRT_INTERPRET", raising=False)
-    assert mesh_mod._vma_check() is True
-    scene, cam = diffuse_scene(CFG.width, CFG.height)
-    mesh = mesh_mod.make_mesh(dp=4, sp=2)
-    # the verifier is ON and the queue path passes it
-    img, n = mesh_mod.render_image_queue_sharded(scene, cam, CFG, 0,
-                                                 mesh)
-    assert float(n) > 0
+    assert "check_vma=False" not in inspect.getsource(mesh_mod)
+    assert inspect.signature(jax.shard_map).parameters[
+        "check_vma"].default is True
 
-    # interpret mode: verifier off, and for a pinned reason — forcing
-    # it on makes the inlined tile kernel's carry types mismatch.
-    monkeypatch.setenv("RRT_INTERPRET", "1")
-    assert mesh_mod._vma_check() is False
-    calls = {}
+
+def _vma_paths():
+    from rrt_tpu.diff import loss_and_grad_chunked
+    from rrt_tpu.parallel.mesh import (render_image_queue_sharded,
+                                       render_image_sharded)
+    cfg = rrt_tpu.RenderConfig(width=16, height=8, spp=4, max_depth=3,
+                               tile_pixels=32, samples_per_pass=2,
+                               queue_size=256)
+
+    def queue(scene, cam, mesh):
+        return render_image_queue_sharded(scene, cam, cfg, 0, mesh)[0]
+
+    def batch(scene, cam, mesh):
+        return render_image_sharded(scene, cam, cfg, 0, mesh)[0]
+
+    def batch_grad(scene, cam, mesh):
+        from rrt_tpu.diff import partition, render_loss
+        return jax.grad(render_loss)(partition(scene), cam, scene, 0.0,
+                                     cfg, 0, mesh)
+
+    def chunked_grad(scene, cam, mesh):
+        return loss_and_grad_chunked(cfg, spp_chunk=2 * mesh.shape["sp"],
+                                     mesh=mesh)(scene, cam, 0.0, 0)[1]
+
+    return {"queue": queue, "batch": batch, "batch_grad": batch_grad,
+            "chunked_grad": chunked_grad}
+
+
+@pytest.mark.parametrize("path", ["queue", "batch", "batch_grad",
+                                  "chunked_grad"])
+def test_check_vma_on_sharded_paths(monkeypatch, path):
+    """Each sharded path traces and runs with check_vma=True."""
+    calls = []
     orig = jax.shard_map
 
-    def forced(f, **kw):
-        kw["check_vma"] = True
-        calls["n"] = calls.get("n", 0) + 1
+    def recording(f=None, /, **kw):
+        calls.append(kw.get("check_vma", True))
         return orig(f, **kw)
 
-    monkeypatch.setattr(jax, "shard_map", forced)
-    importlib.reload(mesh_mod)
-    try:
-        from rrt_tpu.scenes import chap11_scene
-        cfg2 = rrt_tpu.RenderConfig(width=16, height=8, spp=4,
-                                    max_depth=3)
-        sc2, cm2 = chap11_scene(16, 8)
-        with pytest.raises(Exception, match="varying manual axes"):
-            mesh_mod.render_image_tiles_sharded(sc2, cm2, cfg2, 0, mesh)
-        assert calls.get("n", 0) >= 1
-    finally:
-        monkeypatch.undo()
-        importlib.reload(mesh_mod)
-
-
-def test_sharded_tiles_distribute_across_ranks(monkeypatch):
-    """Tile-heavy scenes default to one-instance packing (up to 128
-    chains) on a single device; on a mesh the sharded renderers must
-    cap chains so every dp-rank gets REAL pixel blocks, not padding.
-    Renders rttnw_final tiny on the virtual mesh (interpret kernels)
-    and checks it still matches the single-device tile render."""
-    monkeypatch.setenv("RRT_INTERPRET", "1")
-    from rrt_tpu.parallel.mesh import render_image_tiles_sharded
-    from rrt_tpu.render import render_image_tiles, tile_chains
-    from rrt_tpu.scenes import rttnw_final_scene
-
-    cfg = rrt_tpu.RenderConfig(width=48, height=27, spp=2, max_depth=3)
-    scene, cam = rttnw_final_scene(cfg.width, cfg.height)
-    # the single-device default would pack everything into <= 2 blocks
-    from rrt_tpu.ops import megakernel as mk
-    n_pix = cfg.width * cfg.height
-    single = tile_chains(cfg, scene)
-    assert -(-n_pix // (single * mk.TN)) < 8  # would starve dp=8
-    mesh = make_mesh(dp=8, sp=1)
-    img_s, n_s = render_image_tiles_sharded(scene, cam, cfg, 0, mesh)
-    img_1, n_1 = render_image_tiles(scene, cam, cfg, 0)
-    np.testing.assert_allclose(np.asarray(img_s), np.asarray(img_1),
-                               atol=2e-5, rtol=1e-4)
-
-
-@pytest.mark.slow
-def test_chunked_sharded_train_matches_single_device(monkeypatch):
-    """VERDICT r4 next #3: `make_train_step` under a mesh must CHUNK
-    big per-rank sample budgets (multiple sharded device calls) instead
-    of putting the whole spp range into one shard_map call — the
-    single-device route has chunked since round 3, the mesh route never
-    did, which on real hardware would drive a 500-spp sp=1 step into
-    the ~60 s execution wall. Scaled-down north-star shape: the sharded
-    chunked step's loss and updated parameters must match the
-    single-device chunked step (same global (pixel, sample) keys; f32
-    summation order only)."""
-    monkeypatch.setenv("RRT_INTERPRET", "1")
-    from rrt_tpu.diff import make_train_step_chunked, partition
-
-    cfg = rrt_tpu.RenderConfig(width=16, height=8, spp=16, max_depth=3)
-    scene, cam = chap11_scene(cfg.width, cfg.height)
-    target = jnp.zeros((cfg.height, cfg.width, 3), jnp.float32)
-
-    step_1 = make_train_step_chunked(cfg, spp_chunk=4)
-    s1, c1, l1 = step_1(scene, cam, target, 0)
-
-    mesh = make_mesh(dp=4, sp=2)
-    step_m = make_train_step_chunked(cfg, spp_chunk=4, mesh=mesh)
-    sm, cm, lm = step_m(scene, cam, target, 0)
-
-    np.testing.assert_allclose(float(l1), float(lm), rtol=1e-5)
-    for a, b in zip(jax.tree_util.tree_leaves((partition(s1), c1)),
-                    jax.tree_util.tree_leaves((partition(sm), cm))):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=2e-4, atol=1e-6)
-
-
-@pytest.mark.slow
-def test_make_train_step_mesh_routes_to_chunked(monkeypatch):
-    """The router must send big PER-RANK budgets (spp/sp beyond
-    4*DIFF_SAMPLE_BUDGET) through the chunked-sharded trainer, and the
-    resulting step must still descend on the virtual mesh."""
-    monkeypatch.setenv("RRT_INTERPRET", "1")
-    import rrt_tpu.render as rrender
-    monkeypatch.setattr(rrender, "DIFF_SAMPLE_BUDGET", 1)
-
-    cfg = rrt_tpu.RenderConfig(width=16, height=8, spp=16, max_depth=3)
-    scene, cam = chap11_scene(cfg.width, cfg.height)
-    target = jnp.zeros((cfg.height, cfg.width, 3), jnp.float32) + 0.5
-    mesh = make_mesh(dp=4, sp=2)
-    # per-rank spp/sp=8 > 4*DIFF_SAMPLE_BUDGET*1 -> chunked-sharded.
-    step = make_train_step(cfg, mesh=mesh)
-    assert not hasattr(step, "lower")  # chunked: plain fn, not one jit
-    s2, c2, loss0 = step(scene, cam, target, 0)
-    _, _, loss1 = step(s2, c2, target, 0)
-    assert float(loss1) < float(loss0)
-
-
-def test_trace_tiles_sharded_sample_range(monkeypatch):
-    """trace_tiles_sharded with [sample_lo, sample_lo+n) must tile the
-    sample space exactly like the single-device trace_tiles chunks the
-    chunked trainer uses (global (pixel, sample)-addressed keys)."""
-    monkeypatch.setenv("RRT_INTERPRET", "1")
-    from rrt_tpu.parallel.mesh import trace_tiles_sharded
-    from rrt_tpu.render import trace_tiles
-
-    cfg = rrt_tpu.RenderConfig(width=16, height=8, spp=8, max_depth=3)
-    scene, cam = chap11_scene(cfg.width, cfg.height)
-    mesh = make_mesh(dp=2, sp=4)
-    r_s, n_s = trace_tiles_sharded(scene, cam, cfg, 0, mesh,
-                                   sample_lo=4, n_samples=4)
-    r_1, n_1 = trace_tiles(scene, cam, cfg, 0, sample_lo=4, n_samples=4)
-    assert float(n_s) == float(n_1)
-    np.testing.assert_allclose(np.asarray(r_s), np.asarray(r_1),
-                               atol=2e-5, rtol=1e-4)
+    monkeypatch.setattr(jax, "shard_map", recording)
+    scene, cam = chap11_scene(16, 8)
+    mesh = make_mesh(devices=jax.devices()[:4], dp=2, sp=2)
+    out = _vma_paths()[path](scene, cam, mesh)
+    assert all(np.isfinite(np.asarray(x)).all()
+               for x in jax.tree.leaves(out))
+    assert calls and all(calls), calls
 
 
 def test_vary_for_mesh_noop_outside_shard_map():
@@ -357,7 +166,6 @@ def test_vary_for_mesh_noop_outside_shard_map():
     y = vary_for_mesh(x)
     assert y[0] is x[0] and y[1] is x[1]
 
-    from rrt_tpu.render import RenderConfig, trace_tiles  # noqa: F401
     from rrt_tpu import rng
     from rrt_tpu.camera import generate_rays
     from rrt_tpu.render import trace_batch
@@ -375,35 +183,21 @@ def test_vary_for_mesh_noop_outside_shard_map():
     assert "pcast" not in str(jaxpr) and "pvary" not in str(jaxpr)
 
 
-def test_chunked_trainer_mesh_fallback_uses_sharded_oneshot(monkeypatch,
-                                                            caplog):
-    """A chunked-sharded trainer whose scene/backend falls out of the
-    fused kernel scope must fall back to the ONE-SHOT step with the
-    SAME mesh (round 5 — previously the fallback silently dropped the
-    mesh), warning with the reason. On the CPU backend without
-    RRT_INTERPRET the Pallas gate trips naturally."""
-    import logging
+@pytest.mark.parametrize("address,pid,explicit,expected", [
+    ("localhost:9876", 2, None, [2]),       # several processes, one host
+    ("127.0.0.1:9876", 0, None, [0]),
+    ("10.0.0.5:9876", 1, None, None),       # one process per host
+    ("localhost:9876", 1, [0, 1], [0, 1]),  # explicit ids win
+])
+def test_initialize_distributed_one_card_per_process(monkeypatch, address,
+                                                     pid, explicit,
+                                                     expected):
+    import rrt_tpu.parallel.mesh as mesh_mod
 
-    import rrt_tpu.render as rrender
-    from rrt_tpu.diff import make_train_step_chunked
-
-    monkeypatch.delenv("RRT_INTERPRET", raising=False)
-    monkeypatch.setattr(rrender, "_warned_fallbacks", set())
-    cfg = rrt_tpu.RenderConfig(width=16, height=8, spp=4, max_depth=3,
-                               tile_pixels=32, samples_per_pass=2)
-    scene, cam = chap11_scene(cfg.width, cfg.height)
-    target = jnp.zeros((cfg.height, cfg.width, 3), jnp.float32) + 0.3
-    mesh = make_mesh(dp=4, sp=2)
-    step = make_train_step_chunked(cfg, spp_chunk=2, mesh=mesh)
-    with caplog.at_level(logging.WARNING, logger="rrt_tpu.render"):
-        s2, c2, l0 = step(scene, cam, target, 0)
-    assert any("make_train_step_chunked" in r.message
-               for r in caplog.records)
-    _, _, l1 = step(s2, c2, target, 0)
-    assert float(l1) < float(l0)
-    # and the sharded one-shot result equals the meshless one (same
-    # keys; the mesh only changes the execution layout)
-    from rrt_tpu.diff import _make_train_step_oneshot
-    s_ref, c_ref, l_ref = _make_train_step_oneshot(cfg, None, 1e-2)(
-        scene, cam, target, 0)
-    np.testing.assert_allclose(float(l0), float(l_ref), rtol=1e-5)
+    seen = {}
+    monkeypatch.setattr(jax.distributed, "initialize",
+                        lambda **kw: seen.update(kw))
+    mesh_mod.initialize_distributed(address, 4, pid,
+                                    local_device_ids=explicit)
+    assert seen == {"coordinator_address": address, "num_processes": 4,
+                    "process_id": pid, "local_device_ids": expected}
